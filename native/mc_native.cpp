@@ -1,4 +1,4 @@
-// MapCaller-TPU native runtime: post-seeding chunk processing.
+// MapCaller-JAX native runtime: post-seeding chunk processing.
 //
 // Port of the validated Python host pipeline (pipeline/chaining.py,
 // pairing.py, rescue.py, alignment.py, profile.py, io/sam.py) to C++,
@@ -9,7 +9,8 @@
 // module flat seed arrays; it returns SAM text, updates the PFM planes
 // in place, and emits indel/breakpoint/discord events for the caller.
 //
-// Build: g++ -O3 -fPIC -shared -o libmc_native.so mc_native.cpp
+// Built at first use by mapcaller/native.py (g++ -O3 -fPIC -shared -std=c++17)
+// into .native_build/, keyed by a hash of this file.
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -2359,8 +2360,8 @@ static void sais_core(const TC* T, I* SA, I n, I K, I* unused) {
 // the only allocation is the n-byte type map, so peak build memory is
 //   8(n+1) [SA] + n [text] + ~1.5n [nested type maps]  ~= 11.5 B/char
 // instead of sais_core's ~27 B/char (whose level-1 vectors t1/lms_pos/
-// sa1 dominated the 98 GB RSS at 2.2e9 rows, BIG_GENOME.json). This is
-// the TPU-era answer to the reference's blockwise BWT-SW builder
+// sa1 dominated a 98 GB RSS at 2.2e9 rows). This is
+// this repo's answer to the reference's blockwise BWT-SW builder
 // (ref: src/BWT_Index/bwt_gen.c:1436,1601 — 10 MB increments, no full
 // SA in RAM): we do keep the full SA (the device seeding path wants it
 // resident), but construction overhead beyond the artifact itself is

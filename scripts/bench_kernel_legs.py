@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Per-leg timing of the production seed+chain kernel on the real chip
-(VERDICT r4 next #2): cumulative variants isolate scan / hit-expansion
+"""Per-leg timing of the production seed+chain kernel on the GPU:
+cumulative variants isolate scan / hit-expansion
 +SA-resolve / classify / output-packing so optimization lands where the
 milliseconds are. All inputs pre-staged on device; every variant
 returns reduced scalars so XLA cannot DCE the leg under test.
 
 Usage: python scripts/bench_kernel_legs.py [reads [lanes]]
-Writes KERNEL_LEGS.json at the repo root.
+Names the device and fails without a GPU; prints the legs as JSON.
 """
 import json
 import os
@@ -17,24 +17,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-BD = "/tmp/benchdata"
-
 
 def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from mapcaller_tpu import enable_compilation_cache
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import (build_index, index_exists,
-                                             load_index)
-    from mapcaller_tpu.io.fastq import iter_chunks
-    from mapcaller_tpu.ops.chain_device import classify_reads
-    from mapcaller_tpu.ops.fm_device import sa_resolve
-    from mapcaller_tpu.ops.fm_search import (MIN_SEED_LEN,
+    import bench
+    from mapcaller import enable_compilation_cache
+    from mapcaller.config import Config
+    from mapcaller.io.fastq import iter_chunks
+    from mapcaller.ops.chain_device import classify_reads
+    from mapcaller.ops.fm_device import sa_resolve
+    from mapcaller.ops.fm_search import (MIN_SEED_LEN,
                                              _seed_scan3_compact)
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
+    from mapcaller.pipeline.device_backend import DeviceBackend
 
+    bench.require_gpu()
     enable_compilation_cache()
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 131072
     LANES = int(sys.argv[2]) if len(sys.argv) > 2 else 32768
@@ -42,8 +40,7 @@ def main() -> None:
     max_seeds = MAXLEN // (MIN_SEED_LEN + 1) + 2
     H = B * 9 // 4
 
-    idx = load_index(f"{BD}/mci") if index_exists(f"{BD}/mci") else \
-        build_index(f"{BD}/ecoli.fa", f"{BD}/mci")
+    idx, r1, _ = bench.bench_index()
     cfg = Config(batch_size=8192, max_read_len=MAXLEN)
     be = DeviceBackend(idx, cfg)
     fm3 = be.fm3          # production table incl. auto-selected pfx rows
@@ -51,7 +48,7 @@ def main() -> None:
 
     # ---- stage B reads on device (packed codes + LE words) -------------
     reads = []
-    for chunk in iter_chunks(f"{BD}/es1.fq", None):
+    for chunk in iter_chunks(r1, None):
         reads.extend(r.seq for r in chunk)
         if len(reads) >= B:
             break
@@ -125,7 +122,7 @@ def main() -> None:
     def pack_out(fm, w, r, pk):
         (cls, pd0, mm, rplast, cscore, mmp, hit_read, keep,
          hit_loc) = full_classify(fm, w, r, pk)
-        from mapcaller_tpu.ops.chain_device import CLASS_SLOW
+        from mapcaller.ops.chain_device import CLASS_SLOW
         H2 = B * 5 // 4
         keep_slow = keep & (cls[jnp.clip(hit_read, 0, B - 1)] == CLASS_SLOW)
         dest = jnp.cumsum(keep_slow.astype(jnp.int32)) - 1
@@ -163,10 +160,6 @@ def main() -> None:
                      "leg_ms": round((best - prev) * 1e3, 2)}
         prev = best
         print(name, out[name], flush=True)
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(repo, "KERNEL_LEGS.json"), "w") as f:
-        json.dump(out, f, indent=1)
     print(json.dumps(out))
 
 

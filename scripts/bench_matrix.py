@@ -1,191 +1,138 @@
 #!/usr/bin/env python
-"""Benchmark matrix beyond bench.py's headline row: SE/ksw2 modes, a
-high-divergence read set (where gapped extension actually fires) with
-the Pallas extension kernels on and off, and index-build time.
-Writes BENCH_MATRIX.json at the repo root."""
+"""Benchmark matrix beyond bench.py's headline row: SE/ksw2 mode, a
+3%-divergent read set (where gapped extension fires) with the scalar C++
+aligners and with the device DP kernels, and index-build time.
+
+    python scripts/bench_matrix.py [row ...]      # default: every row
+
+Each row runs in its own process (a clean device and host heap; the
+parent never touches the device), with one
+untimed warm-up pass and one timed pass on the warm engine. Names the
+device and fails without a GPU; prints the rows as one JSON object.
+"""
 import json
 import os
+import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-BENCH_DIR = "/tmp/benchdata"
+import bench  # noqa: E402
+
+N_PE_PAIRS = 100_000
+N_DIV = 200_000
 
 
-def run_map_call(idx, cfg_kwargs, files, n_expect, passes=1):
+def divergent_reads(idx, path: str, n: int = N_DIV) -> str:
+    """Single-end 100 bp reads at 3% substitutions, 10% with a 2-5 bp
+    deletion: most of them reach the gapped-extension DP."""
     import numpy as np
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.pipeline.engine import MappingEngine
-    from mapcaller_tpu.pipeline.stream import run_stream_mapping
-    from mapcaller_tpu.runner import make_engine, run_calling
+    from mapcaller.dna import decode
+    if os.path.exists(path):
+        return path
+    rng = np.random.default_rng(3)
+    g = idx.ref.codes
+    L = idx.genome_size
+    with open(path, "w") as f:
+        for k in range(n):
+            p = int(rng.integers(0, L - 110))
+            c = g[p:p + 100].copy()
+            for _ in range(rng.binomial(100, 0.03)):
+                j = int(rng.integers(0, 100))
+                c[j] = (c[j] + 1 + rng.integers(0, 3)) % 4
+            if k % 10 == 0:
+                d = int(rng.integers(2, 6))
+                c = np.concatenate([g[p:p + 50],
+                                    g[p + 50 + d:p + 110]])[:100]
+            f.write(f"@v{k}\n{decode(c)}\n+\n{'I' * 100}\n")
+    return path
 
-    cfg = Config(vcf_file=f"{BENCH_DIR}/mx.vcf", log_file=f"{BENCH_DIR}/mx.log",
+
+def _head(src: str, n_reads: int, dst: str) -> str:
+    if not os.path.exists(dst):
+        with open(src) as f, open(dst, "w") as g:
+            for i, line in enumerate(f):
+                if i >= 4 * n_reads:
+                    break
+                g.write(line)
+    return dst
+
+
+def run_map_call(idx, cfg_kwargs, files, n_expect):
+    from mapcaller.config import Config
+    from mapcaller.pipeline.stream import run_stream_mapping
+    from mapcaller.runner import make_engine, run_calling
+    d = bench.BENCH_DIR
+    cfg = Config(vcf_file=f"{d}/mx.vcf", log_file=f"{d}/mx.log",
                  batch_size=8192, max_read_len=128, **cfg_kwargs)
     engine = make_engine(idx, cfg)
     cfg.read_files1 = [files[0]]
     cfg.read_files2 = [files[1]] if files[1] else []
-    best = float("inf")
-    for i in range(passes + 1):   # pass 0 = warm-up/compile
-        # steady-state serving reuse, same as bench.py: in-place plane
-        # reset instead of re-faulting fresh genome-sized allocations
+    dt = 0.0
+    for _ in range(2):          # pass 0 = warm-up/compile
         engine.reset_run()
         t0 = time.time()
         run_stream_mapping(engine, cfg, t0)
         engine.finalize()
-        if cfg.vcf_output:
-            run_calling(engine, cfg, "bench-matrix")
+        run_calling(engine, cfg, "bench-matrix")
         dt = time.time() - t0
-        if i > 0:
-            best = min(best, dt)
     n = engine.stats.total_reads
-    assert n == n_expect, (n, n_expect)
-    return n / best, best
+    if n != n_expect:
+        raise SystemExit(f"processed {n} reads, expected {n_expect}")
+    return n / dt
 
 
-def run_row(name):
-    """One matrix row in THIS process; rows are isolated in
-    subprocesses because leftover engines/HBM planes from earlier rows
-    measurably degrade later ones (see memory: warm engines cost 5x)."""
-    from mapcaller_tpu.index.fmindex import build_index, load_index
+ROWS = {
+    "pe_nw": ({}, "pe", 2 * N_PE_PAIRS),
+    "se_ksw2": ({"use_nw": False}, "se", N_PE_PAIRS),
+    "divergent3pct_nw_scalar": ({}, "div", N_DIV),
+    "divergent3pct_nw_device": ({"device_extension": True}, "div", N_DIV),
+    "divergent3pct_ksw2_scalar": ({"use_nw": False}, "div", N_DIV),
+    "divergent3pct_ksw2_device": ({"use_nw": False,
+                                   "device_extension": True}, "div", N_DIV),
+}
+
+
+def run_row(name: str):
+    idx, r1, r2 = bench.bench_index()
     if name == "index_build_s_4.6Mb":
+        from mapcaller.index.fmindex import build_index
         t0 = time.time()
-        build_index(f"{BENCH_DIR}/ecoli.fa", f"{BENCH_DIR}/mci_rebuild")
-        return round(time.time() - t0, 2)
-    idx = load_index(f"{BENCH_DIR}/mci")
-    div = f"{BENCH_DIR}/div.fq"
-    if name == "pe_nw_map_call_reads_per_s":
-        r, _ = run_map_call(idx, {}, (f"{BENCH_DIR}/sub_r1.fq",
-                                      f"{BENCH_DIR}/sub_r2.fq"), 200_000)
-    elif name == "se_ksw2_map_call_reads_per_s":
-        r, _ = run_map_call(idx, {"use_nw": False},
-                            (f"{BENCH_DIR}/sub_r1.fq", None), 100_000)
-    elif name == "divergent3pct_scalar_ext_reads_per_s":
-        r, _ = run_map_call(idx, {}, (div, None), 200_000)
-    elif name == "divergent3pct_pallas_ext_reads_per_s":
-        r, _ = run_map_call(idx, {"device_extension": True}, (div, None),
-                            200_000)
-    elif name == "divergent3pct_pallas_ksw2_reads_per_s":
-        r, _ = run_map_call(idx, {"use_nw": False,
-                                  "device_extension": True}, (div, None),
-                            200_000)
-    else:
-        raise SystemExit(f"unknown row {name}")
-    return round(r, 1)
-
-
-ROW_NAMES = ("index_build_s_4.6Mb", "pe_nw_map_call_reads_per_s",
-             "se_ksw2_map_call_reads_per_s",
-             "divergent3pct_scalar_ext_reads_per_s",
-             "divergent3pct_pallas_ext_reads_per_s",
-             "divergent3pct_pallas_ksw2_reads_per_s")
-
-REF_BIN = "/tmp/refbuild/src/MapCaller"
-
-
-def ref_rate(args, n_reads, passes=2):
-    """reads/s of the reference binary (-t 1) on the SAME workload as a
-    matrix row — each mode has its own CPU cost profile (the divergent
-    set makes the reference do the very DP work it makes us do), so
-    rows must compare like for like, not against the PE headline."""
-    import subprocess
-    ref_idx = f"{BENCH_DIR}/refmxidx"
-    if not os.path.exists(ref_idx + ".sa"):
-        subprocess.run([REF_BIN, "index", f"{BENCH_DIR}/ecoli.fa", ref_idx],
-                       check=True, capture_output=True)
-    best = float("inf")
-    for _ in range(passes):
-        t0 = time.time()
-        subprocess.run([REF_BIN, "-i", ref_idx, "-t", "1", *args,
-                        "-vcf", f"{BENCH_DIR}/refmx.vcf",
-                        "-log", f"{BENCH_DIR}/refmx.log"],
-                       check=True, capture_output=True)
-        best = min(best, time.time() - t0)
-    return round(n_reads / best, 1)
-
-
-def ref_rows():
-    div = f"{BENCH_DIR}/div200.fq"
-    return {
-        "ref_pe_nw_reads_per_s": ref_rate(
-            ["-f", f"{BENCH_DIR}/sub_r1.fq", "-f2", f"{BENCH_DIR}/sub_r2.fq"],
-            200_000),
-        "ref_se_ksw2_reads_per_s": ref_rate(
-            ["-f", f"{BENCH_DIR}/sub_r1.fq", "-alg", "ksw2"], 100_000),
-        "ref_divergent3pct_reads_per_s": ref_rate(["-f", div], 200_000),
-    }
+        build_index(f"{bench.BENCH_DIR}/ecoli.fa",
+                    f"{bench.BENCH_DIR}/mci_rebuild")
+        return time.time() - t0
+    kwargs, reads, n = ROWS[name]
+    d = bench.BENCH_DIR
+    files = {"pe": (_head(r1, N_PE_PAIRS, f"{d}/mx_r1.fq"),
+                    _head(r2, N_PE_PAIRS, f"{d}/mx_r2.fq")),
+             "se": (_head(r1, N_PE_PAIRS, f"{d}/mx_r1.fq"), None),
+             "div": (divergent_reads(idx, f"{d}/div{N_DIV}.fq"), None)}
+    return run_map_call(idx, kwargs, files[reads], n)
 
 
 def main():
-    import numpy as np
-    from mapcaller_tpu import enable_compilation_cache, tune_host_allocator
-    tune_host_allocator()
-    enable_compilation_cache()
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import importlib
-    bench = importlib.import_module("bench")
-    bench.ensure_fixtures()
-    from mapcaller_tpu.dna import decode
-    from mapcaller_tpu.index.fmindex import build_index, load_index
-
-    if len(sys.argv) > 1 and sys.argv[1] == "--row":
-        print(json.dumps({sys.argv[2]: run_row(sys.argv[2])}))
+    if len(sys.argv) > 2 and sys.argv[1] == "--row":
+        from mapcaller import enable_compilation_cache, tune_host_allocator
+        dev = bench.require_gpu()
+        tune_host_allocator()
+        enable_compilation_cache()
+        print(json.dumps({"device": dev, sys.argv[2]: run_row(sys.argv[2])}))
         return
-
+    # this process stays off JAX: only one process at a time holds the card
+    names = sys.argv[1:] or ["index_build_s_4.6Mb", *ROWS]
     rows = {}
-    idx = load_index(f"{BENCH_DIR}/mci")
-
-    # divergent read set: 3% error + indels (DP extension fires)
-    div = f"{BENCH_DIR}/div200.fq"
-    N_DIV = 200_000
-    if not os.path.exists(div):
-        rng = np.random.default_rng(3)
-        g = idx.ref.codes
-        L = idx.genome_size
-        with open(div, "w") as f:
-            for k in range(N_DIV):
-                p = int(rng.integers(0, L - 110))
-                c = g[p:p + 100].copy()
-                nmut = rng.binomial(100, 0.03)
-                for _ in range(nmut):
-                    j = int(rng.integers(0, 100))
-                    c[j] = (c[j] + 1 + rng.integers(0, 3)) % 4
-                if k % 10 == 0:   # 10% carry a small indel
-                    d = int(rng.integers(2, 6))
-                    c = np.concatenate([g[p:p + 50],
-                                        g[p + 50 + d:p + 110]])[:100]
-                f.write(f"@v{k}\n{decode(c)}\n+\n{'I' * 100}\n")
-
-    # one subprocess per row: clean HBM + host state each time
-    import subprocess
-    for name in ROW_NAMES:
+    for name in names:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--row", name],
             capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
-            sys.stderr.write(out.stderr[-2000:])
+            sys.stderr.write(out.stderr[-3000:])
             raise SystemExit(f"row {name} failed")
         rows.update(json.loads(out.stdout.strip().splitlines()[-1]))
-
-    rows["baseline_reads_per_sec"] = 74000.0
-    if os.path.exists(REF_BIN):
-        rows.update(ref_rows())
-        rows["vs_ref_same_workload"] = {
-            "pe_nw": round(rows["pe_nw_map_call_reads_per_s"]
-                           / rows["ref_pe_nw_reads_per_s"], 3),
-            "se_ksw2": round(rows["se_ksw2_map_call_reads_per_s"]
-                             / rows["ref_se_ksw2_reads_per_s"], 3),
-            "divergent3pct": round(
-                max(rows["divergent3pct_scalar_ext_reads_per_s"],
-                    rows["divergent3pct_pallas_ext_reads_per_s"],
-                    rows["divergent3pct_pallas_ksw2_reads_per_s"])
-                / rows["ref_divergent3pct_reads_per_s"], 3),
-        }
-    out = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "BENCH_MATRIX.json")
-    with open(out, "w") as f:
-        json.dump(rows, f, indent=1)
-    print(json.dumps(rows, indent=1))
+        print(json.dumps({name: rows[name]}), file=sys.stderr, flush=True)
+    print(json.dumps(rows))
 
 
 if __name__ == "__main__":

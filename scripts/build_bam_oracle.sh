@@ -1,7 +1,7 @@
 #!/bin/bash
 # Build a minimal htslib-based BAM->SAM decoder (bam2sam) from the
 # reference's vendored htslib, used ONLY as a test oracle to
-# cross-validate mapcaller_tpu's own BGZF/BAM writer (io/bam.py)
+# cross-validate mapcaller's own BGZF/BAM writer (io/bam.py)
 # against a real htslib decode (VERDICT r3 missing #4; reference BAM
 # call sites: /root/reference/src/ReadMapping.cpp:555,603,701).
 # CRAM needs libbz2/liblzma (absent here) and is unused for BAM decode,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Measure offline index-build peak RSS + wall time for a synthetic
-genome of a given size (default 60 Mb). Pure host work — no TPU.
+genome of a given size (default 60 Mb). Pure host work — no device.
 
 Usage: python scripts/build_rss.py [genome_mb] [--json OUT]
 """
@@ -16,8 +16,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> None:
     import numpy as np
 
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.index.packer import PackedReference
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.index.packer import PackedReference
 
     mb = float(sys.argv[1]) if len(sys.argv) > 1 else 60.0
     L = int(mb * 1e6)

@@ -24,21 +24,13 @@ import numpy as np
 def main() -> None:
     import jax.numpy as jnp
 
-    from mapcaller_tpu.index.fmindex import build_index, index_exists, \
-        load_index
-    from mapcaller_tpu.io.fastq import iter_chunks
-    from mapcaller_tpu.ops.fm3_device import DeviceFM3
-    from mapcaller_tpu.ops.fm_search import MIN_SEED_LEN, _seed_scan3
+    from mapcaller.io.fastq import iter_chunks
+    from mapcaller.ops.fm3_device import DeviceFM3
+    from mapcaller.ops.fm_search import MIN_SEED_LEN, _seed_scan3
 
     n_batches = int(sys.argv[1]) if len(sys.argv) > 1 else 4
-    BD = "/tmp/benchdata"
-    if not os.path.exists(f"{BD}/er1.fq"):
-        print("run bench.py once to create /tmp/benchdata", file=sys.stderr)
-        sys.exit(1)
-    if index_exists(f"{BD}/mci"):
-        idx = load_index(f"{BD}/mci")
-    else:
-        idx = build_index(f"{BD}/ecoli.fa", f"{BD}/mci")
+    import bench
+    idx, r1, _ = bench.bench_index()
     fm3 = DeviceFM3.from_host(idx)
 
     B, MAXLEN = 8192, 128
@@ -65,7 +57,7 @@ def main() -> None:
         return out[-1]
 
     reads = []
-    for chunk in iter_chunks(f"{BD}/er1.fq", None):
+    for chunk in iter_chunks(r1, None):
         for r in chunk:
             reads.append(r.seq)
         if len(reads) >= n_batches * B:

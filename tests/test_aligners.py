@@ -9,9 +9,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from mapcaller_tpu.dna import decode
-from mapcaller_tpu.ops.ksw2_host import ksw2_alignment
-from mapcaller_tpu.ops.nw_host import nw_alignment
+from mapcaller.dna import decode
+from mapcaller.ops.ksw2_host import ksw2_alignment
+from mapcaller.ops.nw_host import nw_alignment
 
 HARNESS = "/tmp/alntest"
 

@@ -4,13 +4,13 @@ import os
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.bam import BamWriter, read_bam
-from mapcaller_tpu.io.fastq import iter_chunks
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.read import ReadState
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.bam import BamWriter, read_bam
+from mapcaller.io.fastq import iter_chunks
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.read import ReadState
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
@@ -66,7 +66,7 @@ def test_bam_roundtrip_matches_sam(toy_idx, tmp_path):
 
 def test_runner_bam_path(toy_idx, toy_fasta, tmp_path):
     """-bam through the CLI runner produces a parseable BAM."""
-    from mapcaller_tpu.cli import main
+    from mapcaller.cli import main
     prefix = str(tmp_path / "idx")
     assert main(["mapcaller", "index", toy_fasta, prefix]) == 0
     bam = str(tmp_path / "o.bam")

@@ -13,13 +13,13 @@ import subprocess
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.bam import BamWriter
-from mapcaller_tpu.io.fastq import iter_chunks
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.read import ReadState
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.bam import BamWriter
+from mapcaller.io.fastq import iter_chunks
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.read import ReadState
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 ORACLE = "/tmp/htsbuild/bam2sam"

@@ -5,7 +5,7 @@ tests/test_bam.py round-trips through io/bam.read_bam, which lives next
 to the writer and shares its constants — a shared encode/decode bug
 would pass. The decoder below is written directly from the SAMv1 spec
 (sections 4.1 BGZF, 4.2 BAM, 5.3 binning) and imports NOTHING from
-mapcaller_tpu.io.bam:
+mapcaller.io.bam:
 
   * BGZF parsed at the gzip-member level (FEXTRA + "BC" subfield with
     BSIZE, raw-deflate payload, per-block CRC32 + ISIZE verified, the
@@ -22,15 +22,15 @@ import zlib
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.read import ReadState
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.read import ReadState
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
-# ---- independent from-spec decoder (no mapcaller_tpu.io.bam) ----------
+# ---- independent from-spec decoder (no mapcaller.io.bam) ----------
 
 SPEC_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
@@ -170,8 +170,8 @@ def spec_decode_bam(stream):
 # ---- the test ---------------------------------------------------------
 
 def test_bam_decodes_identically_with_from_spec_reader(toy_fasta, tmp_path):
-    from mapcaller_tpu.io.bam import BamWriter
-    from mapcaller_tpu.io.fastq import iter_chunks
+    from mapcaller.io.bam import BamWriter
+    from mapcaller.io.fastq import iter_chunks
 
     idx = build_index(toy_fasta)
     cfg = Config(bam_file=str(tmp_path / "o.bam"), vcf_output=False)

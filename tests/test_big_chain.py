@@ -1,7 +1,7 @@
 """x64 big-genome PRODUCTION chain path (parallel/big_index.
 build_big_chain_kernel via DeviceBackend with cfg.big_x64): parity vs
 the plain single-chip backend and the reference goldens. The >2^31-row
-integration proof is scripts/big_genome_proof.py (BIG_GENOME.json);
+integration proof is scripts/big_genome_proof.py;
 these tests force the x64 kernels on small genomes so the full
 map+call production semantics are exercised on the 8-device CPU mesh.
 
@@ -28,10 +28,10 @@ def toy_fasta():
 def test_big_x64_chain_parity():
     """submit_chain/collect_chain through _BigShardedChain must match
     the single-chip kernel bit for bit, with int64 diagonals."""
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.pipeline.device_backend import DeviceBackend
 
     rng = np.random.default_rng(21)
     codes = rng.integers(0, 4, size=30000).astype(np.uint8)
@@ -74,13 +74,13 @@ def test_big_x64_stream_golden(tmp_path, toy_fasta):
     """Full production stream (CLI semantics) with big_x64 + 8 shards:
     paired-end subset must match the reference binary's golden SAM+VCF,
     including evidence planes fed int64 diagonals."""
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.io.sam import sam_headers
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-    from mapcaller_tpu.pipeline.engine import MappingEngine
-    from mapcaller_tpu.pipeline.stream import run_stream_mapping
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.io.sam import sam_headers
+    from mapcaller.pipeline.device_backend import DeviceBackend
+    from mapcaller.pipeline.engine import MappingEngine
+    from mapcaller.pipeline.stream import run_stream_mapping
+    from mapcaller.runner import run_calling
 
     idx = build_index(toy_fasta)
     data = os.path.join(os.path.dirname(__file__), "data", "subset")
@@ -115,9 +115,9 @@ def test_classify_int64_matches_int32():
     hits, and pd0 must come back in the position dtype."""
     import jax.numpy as jnp
 
-    from mapcaller_tpu.index.fmindex import build_index, pack_words
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.ops.chain_device import ChainCtx, classify_reads
+    from mapcaller.index.fmindex import build_index, pack_words
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.ops.chain_device import ChainCtx, classify_reads
 
     rng = np.random.default_rng(7)
     codes = rng.integers(0, 4, size=4096).astype(np.uint8)
@@ -159,13 +159,13 @@ def test_classify_int64_matches_int32():
 # ---------------------------------------------------------------------------
 
 def _run_big(toy_fasta, tmp_path, tag, **cfg_kw):
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.io.sam import sam_headers
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-    from mapcaller_tpu.pipeline.engine import MappingEngine
-    from mapcaller_tpu.pipeline.stream import run_stream_mapping
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.io.sam import sam_headers
+    from mapcaller.pipeline.device_backend import DeviceBackend
+    from mapcaller.pipeline.engine import MappingEngine
+    from mapcaller.pipeline.stream import run_stream_mapping
+    from mapcaller.runner import run_calling
 
     idx = build_index(toy_fasta)
     data = os.path.join(os.path.dirname(__file__), "data", "modes")
@@ -208,7 +208,7 @@ def test_big_sharded_planes_mode_parity(toy_fasta, tmp_path, name, cfg_kw):
     the big_x64 + 8-shard production path must reproduce the reference
     goldens for the modes that stress each sharded kernel (scan, NOR
     segment reduction, full-plane download)."""
-    from mapcaller_tpu.pipeline.big_profile import BigDeviceEvidence
+    from mapcaller.pipeline.big_profile import BigDeviceEvidence
     sam, vcf, ev = _run_big(toy_fasta, tmp_path, name, **cfg_kw)
     assert isinstance(ev, BigDeviceEvidence)
     gsam, gvcf = _golden_mode(name)
@@ -220,7 +220,7 @@ def test_big_sharded_planes_layout(toy_fasta, tmp_path):
     """Memory contract: every evidence plane is genome-sharded over the
     dp mesh — each device holds exactly a [.., Pl] slice, never the
     full [.., n*Pl] plane (the human-scale HBM constraint)."""
-    from mapcaller_tpu.pipeline.big_profile import BigDeviceEvidence
+    from mapcaller.pipeline.big_profile import BigDeviceEvidence
     sam, vcf, ev = _run_big(toy_fasta, tmp_path, "layout")
     assert isinstance(ev, BigDeviceEvidence)
     assert ev.Pg == 8 * ev.Pl and ev.Pg >= ev.L + 2

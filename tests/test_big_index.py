@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.occ3 import build_occ3, build_occ3_64
-from mapcaller_tpu.index.packer import PackedReference
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.occ3 import build_occ3, build_occ3_64
+from mapcaller.index.packer import PackedReference
 
 
 def _toy_index(L=12000, seed=17):
@@ -49,11 +49,11 @@ def test_big_kernel_matches_int32_scan_and_host_sa():
     """The x64 sharded kernel's seed tables must equal the replicated
     int32 scan's, and its routed full-SA hit locations must equal the
     host suffix array's."""
-    from mapcaller_tpu.ops.fm3_device import DeviceFM3
-    from mapcaller_tpu.ops.fm_search import MIN_SEED_LEN, _seed_scan3
-    from mapcaller_tpu.parallel.big_index import (
+    from mapcaller.ops.fm3_device import DeviceFM3
+    from mapcaller.ops.fm_search import MIN_SEED_LEN, _seed_scan3
+    from mapcaller.parallel.big_index import (
         build_big_seed_hits_kernel, shard_rows)
-    from mapcaller_tpu.parallel.mesh import make_mesh
+    from mapcaller.parallel.mesh import make_mesh
 
     idx, rng = _toy_index()
     fm3 = DeviceFM3.from_host(idx)

@@ -2,13 +2,13 @@
 import numpy as np
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.calling.caller import (_identify_variants_scalar,
+from mapcaller.config import Config
+from mapcaller.calling.caller import (_identify_variants_scalar,
                                           _identify_variants_vec,
                                           cal_block_read_depth)
-from mapcaller_tpu.genome import Genome
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.pipeline.profile import Profile
+from mapcaller.genome import Genome
+from mapcaller.index.packer import PackedReference
+from mapcaller.pipeline.profile import Profile
 
 
 def _random_profile(rng, L, sparse=False):
@@ -89,7 +89,7 @@ def test_vec_matches_scalar(seed, kwargs):
     (True, True, False, 2),
 ])
 def test_gvcf_vec_matches_scalar(gvcf, mono, somatic, ploidy):
-    from mapcaller_tpu.calling.caller import _identify_variants_gvcf_vec
+    from mapcaller.calling.caller import _identify_variants_gvcf_vec
     rng = np.random.default_rng(77 + ploidy + 2 * gvcf + 4 * mono)
     L = 4000
     prof, ref = _random_profile(rng, L)

@@ -6,7 +6,7 @@ Ref contrast: the reference persists only the index and rebuilds its
 PFM every run (src/bwt_index.cpp:126-148, main.cpp:372)."""
 import os
 
-from mapcaller_tpu.cli import main
+from mapcaller.cli import main
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 

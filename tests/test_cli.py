@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from mapcaller_tpu.cli import main, parse_args
+from mapcaller.cli import main, parse_args
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 

@@ -1,17 +1,17 @@
-"""Device-backend end-to-end: TPU-kernel seeding feeding the pipeline
+"""Device-backend end-to-end: device-kernel seeding feeding the pipeline
 must reproduce the golden SAM bit-for-bit (CPU backend here)."""
 import gzip
 import os
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.fastq import iter_chunks
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.read import ReadState
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.fastq import iter_chunks
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.read import ReadState
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
@@ -38,13 +38,16 @@ def test_device_seeding_matches_golden_sam(toy_fasta):
     assert sam == golden
 
 
-def test_hbm_budget_predicates():
-    """Selection is budget-driven, not crash-driven: the 3-step table
-    needs occ1+occ3+SA+workspace to fit (a 500 Mb genome doesn't);
-    device evidence additionally needs ~88 B/base of planes+finalize
-    (a 200 Mb calling run measured 20.3 GB on a 15.75 GB v5e and
-    OOM'd before these gates; it now maps with occ3 and accumulates
-    evidence on host)."""
+@pytest.mark.parametrize("mb,occ3_ok,ev_ok", [
+    (4.6, True, True), (60, True, True), (100, True, True),
+    (110, True, False), (200, True, False), (500, False, False)])
+def test_hbm_budget_predicates(monkeypatch, mb, occ3_ok, ev_ok):
+    """Selection is budget-driven, not crash-driven: under an explicit
+    16 GB budget the 3-step table needs occ1+occ3+SA+workspace to fit (a
+    500 Mb genome doesn't); device evidence additionally needs ~88 B/base
+    of planes+finalize (a 200 Mb calling run maps with occ3 and
+    accumulates evidence on host)."""
+    monkeypatch.setenv("MC_HBM_BYTES", str(16_000_000_000))
     be = DeviceBackend.__new__(DeviceBackend)
 
     class _I:
@@ -53,12 +56,9 @@ def test_hbm_budget_predicates():
     class _Cfg:
         vcf_output = True
 
-    for mb, occ3_ok, ev_ok in ((4.6, True, True), (60, True, True),
-                               (100, True, True), (110, True, False),
-                               (200, True, False), (500, False, False)):
-        i = _I()
-        i.genome_size = int(mb * 1e6)
-        i.seq_len = 2 * i.genome_size
-        assert be._occ3_fits(i, _Cfg()) == occ3_ok, mb
-        be._fm3_ok = occ3_ok
-        assert be._device_evidence_fits(i, _Cfg()) == ev_ok, mb
+    i = _I()
+    i.genome_size = int(mb * 1e6)
+    i.seq_len = 2 * i.genome_size
+    assert be._occ3_fits(i, _Cfg()) == occ3_ok
+    be._fm3_ok = occ3_ok
+    assert be._device_evidence_fits(i, _Cfg()) == ev_ok

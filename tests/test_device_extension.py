@@ -7,13 +7,13 @@ import time
 import numpy as np
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.dna import decode
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.config import Config
+from mapcaller.dna import decode
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.packer import PackedReference
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.stream import run_stream_mapping
 
 
 @pytest.fixture(scope="module")

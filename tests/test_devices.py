@@ -10,14 +10,14 @@ import time
 import numpy as np
 import pytest
 
-from mapcaller_tpu.cli import parse_args
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.dna import decode
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.cli import parse_args
+from mapcaller.config import Config
+from mapcaller.dna import decode
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.packer import PackedReference
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.stream import run_stream_mapping
 
 NDEV = 4
 
@@ -77,11 +77,11 @@ def _run(idx, tmp_path, tag, f1, f2, n_devices):
                  batch_size=256, stream_batch_size=256, max_read_len=128,
                  devices=n_devices)
     if n_devices > 1:
-        from mapcaller_tpu.parallel.devices import MultiDeviceBackend
+        from mapcaller.parallel.devices import MultiDeviceBackend
         backend = MultiDeviceBackend(idx, cfg, n_devices)
         assert backend.n_devices == n_devices
     else:
-        from mapcaller_tpu.pipeline.device_backend import DeviceBackend
+        from mapcaller.pipeline.device_backend import DeviceBackend
         backend = DeviceBackend(idx, cfg)
     engine = MappingEngine(idx, cfg, backend=backend)
     cfg.read_files1, cfg.read_files2 = [f1], [f2]
@@ -94,7 +94,7 @@ def _run(idx, tmp_path, tag, f1, f2, n_devices):
     engine.finalize()
     sam = sam_headers(engine.genome, "test")
     sam.extend("".join(parts).splitlines())
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test-devices")
     vcf = [l for l in open(cfg.vcf_file).read().splitlines()
            if not l.startswith("##")]
@@ -132,7 +132,7 @@ def test_cli_devices_flag():
 
 
 def test_devices_shards_exclusive(tmp_path):
-    from mapcaller_tpu.runner import make_engine
+    from mapcaller.runner import make_engine
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 4, size=4000).astype(np.uint8)
     idx = build_index(None, packed=PackedReference(

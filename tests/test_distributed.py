@@ -6,12 +6,12 @@ import time
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.parallel.distributed import merge_engines
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.parallel.distributed import merge_engines
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.stream import run_stream_mapping
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
@@ -52,7 +52,7 @@ def test_sharded_mapping_merged_vcf_matches_single(toy_idx, tmp_path, n_hosts):
         cfg.read_files2 = [os.path.join(DATA, "sub_r2.fq.gz")]
         run_stream_mapping(engine, cfg, time.time())
         engine.finalize()
-        from mapcaller_tpu.runner import run_calling
+        from mapcaller.runner import run_calling
         run_calling(engine, cfg, "x")
         return cfg.vcf_file
 
@@ -70,7 +70,7 @@ def test_sharded_mapping_merged_vcf_matches_single(toy_idx, tmp_path, n_hosts):
             run_stream_mapping(engine, cfg, time.time())
             engines.append(engine)
         root = merge_engines(engines)
-        from mapcaller_tpu.runner import run_calling
+        from mapcaller.runner import run_calling
         run_calling(root, cfg, "x")
         return cfg.vcf_file
 
@@ -114,7 +114,7 @@ def test_sharded_sv_dataset_matches_single(toy_idx, tmp_path):
     engine = _run_engine(toy_idx, cfg, os.path.join(MODES, "sv_r1.fq.gz"),
                          os.path.join(MODES, "sv_r2.fq.gz"))
     engine.finalize()
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "x")
     single = cfg.vcf_file
 
@@ -141,7 +141,7 @@ def test_sharded_insertion_reads_match_single(toy_idx, tmp_path):
     """Insertion pileups through the 2-shard merge: insert_map events
     must merge to bit-identical TYPE=ins records."""
     import numpy as np
-    from mapcaller_tpu.dna import decode
+    from mapcaller.dna import decode
     rng = np.random.default_rng(5)
     g = toy_idx.ref.codes
     RL = 100
@@ -174,7 +174,7 @@ def test_sharded_insertion_reads_match_single(toy_idx, tmp_path):
                  log_file=str(tmp_path / "s.log"))
     engine = _run_engine(toy_idx, cfg, r1p, r2p)
     engine.finalize()
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "x")
     single = cfg.vcf_file
 

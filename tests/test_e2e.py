@@ -9,12 +9,12 @@ import os
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.fastq import iter_chunks
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.read import ReadState
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.fastq import iter_chunks
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.read import ReadState
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
@@ -64,7 +64,7 @@ def test_pe_nw_sam_and_vcf_bit_identical(toy_idx, tmp_path):
     assert sam == golden
 
     # VCF
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test")
     got = [l for l in read_lines(cfg.vcf_file)
            if not l.startswith("##command_line") and not l.startswith("##reference")]
@@ -87,7 +87,7 @@ def test_se_sam_and_vcf(toy_idx, tmp_path):
     golden = read_lines(os.path.join(DATA, "sub_ref_se.sam.gz"))
     assert normalize_se_qual(sam) == normalize_se_qual(golden)
 
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test")
     got = [l for l in read_lines(cfg.vcf_file)
            if not l.startswith("##command_line") and not l.startswith("##reference")]

@@ -4,13 +4,13 @@ import os
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.fastq import iter_chunks
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.read import ReadState
-from mapcaller_tpu.runner import run_calling
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.fastq import iter_chunks
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.read import ReadState
+from mapcaller.runner import run_calling
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 

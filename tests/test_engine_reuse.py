@@ -9,12 +9,12 @@ import time
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.stream import run_stream_mapping
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
@@ -36,7 +36,7 @@ def _one_run(engine, cfg, tag, tmp_path):
     engine.finalize()
     sam = sam_headers(engine.genome, "0.9.9.41")
     sam.extend("".join(parts).splitlines())
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     cfg.vcf_file = str(tmp_path / f"out_{tag}.vcf")
     run_calling(engine, cfg, "test")
     vcf = [l for l in read_lines(cfg.vcf_file)

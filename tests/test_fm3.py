@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.occ3 import SENTINEL, build_occ3, occ3_oracle
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.ops.fm_device import DeviceFMIndex
-from mapcaller_tpu.ops.fm3_device import (DeviceFM3, gather3, occ1_4,
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.occ3 import SENTINEL, build_occ3, occ3_oracle
+from mapcaller.index.packer import PackedReference
+from mapcaller.ops.fm_device import DeviceFMIndex
+from mapcaller.ops.fm3_device import (DeviceFM3, gather3, occ1_4,
                                           step1_update, step3_update)
-from mapcaller_tpu.ops.fm_search import build_seed_kernel_packed
-from mapcaller_tpu.pipeline.seeding import identify_simple_pairs
+from mapcaller.ops.fm_search import build_seed_kernel_packed
+from mapcaller.pipeline.seeding import identify_simple_pairs
 
 
 def _make_idx(seed, L):

@@ -4,10 +4,10 @@ c3_first, correction rows, and the derived scalar constants."""
 import numpy as np
 import pytest
 
-from mapcaller_tpu.index.fmindex import FMIndex, build_index, pack_words
-from mapcaller_tpu.index.occ3 import build_occ3
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.ops.fm3_device import DeviceFM3, _occ3_rows_device
+from mapcaller.index.fmindex import FMIndex, build_index, pack_words
+from mapcaller.index.occ3 import build_occ3
+from mapcaller.index.packer import PackedReference
+from mapcaller.ops.fm3_device import DeviceFM3, _occ3_rows_device
 
 
 def _idx_from_codes(codes):

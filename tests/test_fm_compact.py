@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.ops.fm3_device import DeviceFM3
-from mapcaller_tpu.ops.fm_search import (MIN_SEED_LEN, _seed_scan3,
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.packer import PackedReference
+from mapcaller.ops.fm3_device import DeviceFM3
+from mapcaller.ops.fm_search import (MIN_SEED_LEN, _seed_scan3,
                                          _seed_scan3_compact)
 
 

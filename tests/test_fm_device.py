@@ -3,12 +3,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mapcaller_tpu.dna import encode
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.ops.fm_device import DeviceFMIndex, occ4, occ_one, inv_psi, sa_resolve
-from mapcaller_tpu.ops.fm_search import build_seed_kernel, seeds_to_frag_pairs
-from mapcaller_tpu.pipeline.seeding import identify_simple_pairs
+from mapcaller.dna import encode
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.packer import PackedReference
+from mapcaller.ops.fm_device import DeviceFMIndex, occ4, occ_one, inv_psi, sa_resolve
+from mapcaller.ops.fm_search import build_seed_kernel, seeds_to_frag_pairs
+from mapcaller.pipeline.seeding import identify_simple_pairs
 
 
 @pytest.fixture(scope="module")

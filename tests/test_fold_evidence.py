@@ -4,12 +4,12 @@ correction must be an exact retraction."""
 import numpy as np
 import pytest
 
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.ops.chain_device import CLASS_FAST, ChainCtx
-from mapcaller_tpu.ops.fm3_device import DeviceFM3
-from mapcaller_tpu.ops.fm_search import build_seed_chain_kernel
-from mapcaller_tpu.pipeline.device_profile import (
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.packer import PackedReference
+from mapcaller.ops.chain_device import CLASS_FAST, ChainCtx
+from mapcaller.ops.fm3_device import DeviceFM3
+from mapcaller.ops.fm_search import build_seed_chain_kernel
+from mapcaller.pipeline.device_profile import (
     DevicePlanes, build_apply_kernel, build_correct_kernel)
 
 
@@ -92,10 +92,10 @@ def test_folded_apply_bit_identical(setup, pair_end):
 def _stream_run(idx, cfg, f1, f2=None):
     import time
 
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-    from mapcaller_tpu.pipeline.engine import MappingEngine
-    from mapcaller_tpu.pipeline.stream import run_stream_mapping
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.pipeline.device_backend import DeviceBackend
+    from mapcaller.pipeline.engine import MappingEngine
+    from mapcaller.pipeline.stream import run_stream_mapping
+    from mapcaller.runner import run_calling
     backend = DeviceBackend(idx, cfg)
     engine = MappingEngine(idx, cfg, backend=backend)
     cfg.read_files1, cfg.read_files2 = [f1], ([f2] if f2 else [])
@@ -112,7 +112,7 @@ def test_fold_stream_parity_pe(tmp_path, toy_fasta):
     bit-identical: speculative apply + sparse dup-gate retraction."""
     import os
 
-    from mapcaller_tpu.config import Config
+    from mapcaller.config import Config
     idx = build_index(toy_fasta)
     data = os.path.join(os.path.dirname(__file__), "data", "subset")
     outs = []
@@ -130,8 +130,8 @@ def test_fold_stream_parity_pe(tmp_path, toy_fasta):
 def test_fold_tier_rerun_undo(tmp_path):
     """When a hit-buffer rerun invalidates the folded speculation, the
     dense undo + classic apply must restore bit-exact evidence."""
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.dna import decode
+    from mapcaller.config import Config
+    from mapcaller.dna import decode
     rng = np.random.default_rng(33)
     unit = rng.integers(0, 4, 500).astype(np.uint8)
     genome = np.concatenate([rng.integers(0, 4, 4000).astype(np.uint8),

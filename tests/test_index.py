@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from mapcaller_tpu.dna import decode, encode, revcomp_codes
-from mapcaller_tpu.index.suffix import build_suffix_array, bwt_from_sa
-from mapcaller_tpu.index.fmindex import FMIndex, build_index, load_index, pack_words
-from mapcaller_tpu.index.packer import PackedReference, pack_fasta
+from mapcaller.dna import decode, encode, revcomp_codes
+from mapcaller.index.suffix import build_suffix_array, bwt_from_sa
+from mapcaller.index.fmindex import FMIndex, build_index, load_index, pack_words
+from mapcaller.index.packer import PackedReference, pack_fasta
 
 
 def brute_suffix_array(text):
@@ -112,7 +112,7 @@ def test_occ3_persisted_with_prefix(tmp_path, monkeypatch):
     load_index memmaps it and the persisted table is identical to a
     fresh rebuild. (Off by default — the production path derives the
     table on device, tests/test_fm3_device_build.py.)"""
-    from mapcaller_tpu.index.occ3 import build_occ3
+    from mapcaller.index.occ3 import build_occ3
     monkeypatch.setenv("MC_PERSIST_OCC3", "1")
     rng = np.random.default_rng(7)
     codes = rng.integers(0, 4, size=3000).astype(np.uint8)

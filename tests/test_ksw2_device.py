@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from mapcaller_tpu.dna import decode
-from mapcaller_tpu.ops.ksw2_device import ksw2_align_batch
-from mapcaller_tpu.ops.ksw2_host import ksw2_alignment
+from mapcaller.dna import decode
+from mapcaller.ops.ksw2_device import ksw2_align_batch
+from mapcaller.ops.ksw2_host import ksw2_alignment
 
 
 def _rand_pair(rng, max_len=60):

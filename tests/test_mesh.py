@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.ops.fm_device import DeviceFMIndex
-from mapcaller_tpu.parallel.mesh import build_multichip_map_step, make_mesh
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.packer import PackedReference
+from mapcaller.ops.fm_device import DeviceFMIndex
+from mapcaller.parallel.mesh import build_multichip_map_step, make_mesh
 
 
 def _pack2(codes):
@@ -75,12 +75,12 @@ def test_sharded_index_seeding():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.ops.fm3_device import DeviceFM3
-    from mapcaller_tpu.ops.fm_search import MIN_SEED_LEN, _seed_scan3
-    from mapcaller_tpu.parallel.mesh import make_mesh
-    from mapcaller_tpu.parallel.sharded_index import (build_sharded_seed_scan,
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.ops.fm3_device import DeviceFM3
+    from mapcaller.ops.fm_search import MIN_SEED_LEN, _seed_scan3
+    from mapcaller.parallel.mesh import make_mesh
+    from mapcaller.parallel.sharded_index import (build_sharded_seed_scan,
                                                       shard_occ3_rows)
 
     rng = np.random.default_rng(17)
@@ -150,11 +150,11 @@ def test_sharded_sa_resolve():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.ops.fm_device import DeviceFMIndex
-    from mapcaller_tpu.parallel.mesh import make_mesh
-    from mapcaller_tpu.parallel.sharded_index import build_sharded_sa_resolve
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.ops.fm_device import DeviceFMIndex
+    from mapcaller.parallel.mesh import make_mesh
+    from mapcaller.parallel.sharded_index import build_sharded_sa_resolve
 
     rng = np.random.default_rng(29)
     L = 9000
@@ -200,10 +200,10 @@ def test_sharded_production_chain_parity():
     backend, not just the dryrun)."""
     import numpy as np
 
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.pipeline.device_backend import DeviceBackend
 
     rng = np.random.default_rng(21)
     codes = rng.integers(0, 4, size=30000).astype(np.uint8)
@@ -248,13 +248,13 @@ def test_sharded_backend_stream_golden(tmp_path, toy_fasta):
     import os
     import time
 
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.io.sam import sam_headers
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-    from mapcaller_tpu.pipeline.engine import MappingEngine
-    from mapcaller_tpu.pipeline.stream import run_stream_mapping
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.io.sam import sam_headers
+    from mapcaller.pipeline.device_backend import DeviceBackend
+    from mapcaller.pipeline.engine import MappingEngine
+    from mapcaller.pipeline.stream import run_stream_mapping
+    from mapcaller.runner import run_calling
 
     idx = build_index(toy_fasta)
     data = os.path.join(os.path.dirname(__file__), "data", "subset")
@@ -298,12 +298,12 @@ def test_sharded_chain_sampled_sa_walk():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.ops.fm3_device import DeviceFM3
-    from mapcaller_tpu.ops.fm_search import build_seed_chain_kernel
-    from mapcaller_tpu.parallel.mesh import make_mesh
-    from mapcaller_tpu.parallel.sharded_index import (
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.ops.fm3_device import DeviceFM3
+    from mapcaller.ops.fm_search import build_seed_chain_kernel
+    from mapcaller.parallel.mesh import make_mesh
+    from mapcaller.parallel.sharded_index import (
         build_sharded_chain_kernel, shard_occ3_rows)
 
     rng = np.random.default_rng(43)
@@ -313,7 +313,7 @@ def test_sharded_chain_sampled_sa_walk():
     fm3 = DeviceFM3.from_host(idx)
     fm_s = dc.replace(fm3.fm, sa_full=jnp.zeros(0, jnp.int32))
     fm3_s = dc.replace(fm3, fm=fm_s)
-    from mapcaller_tpu.ops.chain_device import ChainCtx
+    from mapcaller.ops.chain_device import ChainCtx
     ctx = ChainCtx.from_host(idx)
 
     n_dev, B, bucket = 8, 128, 128
@@ -376,10 +376,10 @@ def test_sharded_tier_rerun_parity():
     one) and outputs must match the plain backend's rerun results."""
     import numpy as np
 
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.pipeline.device_backend import DeviceBackend
 
     rng = np.random.default_rng(47)
     unit = rng.integers(0, 4, 400).astype(np.uint8)
@@ -419,12 +419,12 @@ def test_sharded_backend_gvcf_parity(tmp_path, toy_fasta):
     import os
     import time
 
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-    from mapcaller_tpu.pipeline.engine import MappingEngine
-    from mapcaller_tpu.pipeline.stream import run_stream_mapping
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.pipeline.device_backend import DeviceBackend
+    from mapcaller.pipeline.engine import MappingEngine
+    from mapcaller.pipeline.stream import run_stream_mapping
+    from mapcaller.runner import run_calling
 
     idx = build_index(toy_fasta)
     data = os.path.join(os.path.dirname(__file__), "data", "subset")

@@ -7,12 +7,12 @@ import time
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.stream import run_stream_mapping
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 MODES = os.path.join(os.path.dirname(__file__), "data", "modes")
@@ -41,7 +41,7 @@ def _run(toy_idx, cfg, f1, f2=None, tmp_path=None):
     sam.extend("".join(parts).splitlines())
     vcf = None
     if cfg.vcf_output:
-        from mapcaller_tpu.runner import run_calling
+        from mapcaller.runner import run_calling
         run_calling(engine, cfg, "test")
         vcf = [l for l in read_lines(cfg.vcf_file) if not l.startswith("##")]
     return sam, vcf
@@ -114,7 +114,7 @@ def test_multi_library(toy_idx, tmp_path):
     engine.finalize()
     sam = sam_headers(engine.genome, "0.9.9.41")
     sam.extend("".join(parts).splitlines())
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test")
     vcf = [l for l in read_lines(cfg.vcf_file) if not l.startswith("##")]
     gsam, gvcf = _golden("multilib")
@@ -226,7 +226,7 @@ def test_repeat_rich_genome_parity(tmp_path):
     engine.finalize()
     sam = sam_headers(engine.genome, "0.9.9.41")
     sam.extend("".join(parts).splitlines())
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test")
     vcf = [l for l in read_lines(cfg.vcf_file) if not l.startswith("##")]
     want_sam, want_vcf = _golden("repeat")
@@ -242,10 +242,10 @@ def test_moderate_repeats_tier_rerun(tmp_path):
     the rerun tier — the larger-tier path must produce the same output
     as the pure-Python oracle engine."""
     import numpy as np
-    from mapcaller_tpu.dna import decode
-    from mapcaller_tpu.index.packer import PackedReference
-    from mapcaller_tpu.io.fastq import iter_chunks
-    from mapcaller_tpu.pipeline.read import ReadState
+    from mapcaller.dna import decode
+    from mapcaller.index.packer import PackedReference
+    from mapcaller.io.fastq import iter_chunks
+    from mapcaller.pipeline.read import ReadState
     rng = np.random.default_rng(33)
     unit = rng.integers(0, 4, 500).astype(np.uint8)
     genome = np.concatenate([rng.integers(0, 4, 4000).astype(np.uint8),
@@ -298,7 +298,7 @@ def test_tier_rerun_refreshes_token(tmp_path):
     reads based on the rerun's classifications, so stale tier-2 arrays
     could scatter evidence at a stale diagonal."""
     import numpy as np
-    from mapcaller_tpu.index.packer import PackedReference
+    from mapcaller.index.packer import PackedReference
 
     rng = np.random.default_rng(5)
     unit = rng.integers(0, 4, 400).astype(np.uint8)
@@ -333,7 +333,7 @@ def test_obr_byte_parity_with_reference(toy_fasta, tmp_path, capfd):
     call site re-enabled (VariantCalling.cpp:707, ShowVariationProfile
     tools.cpp:177-186). Golden captured via scripts/build_reference_obs.sh
     on the subset dataset."""
-    from mapcaller_tpu.cli import main
+    from mapcaller.cli import main
     prefix = str(tmp_path / "idx")
     assert main(["mapcaller", "index", toy_fasta, prefix]) == 0
     capfd.readouterr()

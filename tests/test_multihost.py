@@ -22,7 +22,7 @@ def _free_port():
 
 def _write_fixtures(tmp_path):
     sys.path.insert(0, REPO)
-    from mapcaller_tpu.dna import decode
+    from mapcaller.dna import decode
     rng = np.random.default_rng(11)
     L = 6000
     codes = rng.integers(0, 4, size=L).astype(np.uint8)
@@ -60,7 +60,7 @@ def _write_pe_fixtures(tmp_path):
     """Paired-end fixture: background pair tiling + SNP pileups on
     mate 1 + a deletion pileup (host slow path through the C++ engine)."""
     sys.path.insert(0, REPO)
-    from mapcaller_tpu.dna import decode
+    from mapcaller.dna import decode
     rng = np.random.default_rng(17)
     L = 8000
     codes = rng.integers(0, 4, size=L).astype(np.uint8)
@@ -108,7 +108,7 @@ def _launch(n, fasta, reads, out, port, reads2=None, devices=1):
         env["XLA_FLAGS"] = (
             f"--xla_force_host_platform_device_count={devices}")
         env.pop("JAX_NUM_PROCESSES", None)
-        cmd = [sys.executable, "-m", "mapcaller_tpu.parallel.multihost",
+        cmd = [sys.executable, "-m", "mapcaller.parallel.multihost",
                "--pid", str(pid), "--num", str(n),
                "--coordinator", f"127.0.0.1:{port}",
                "--fasta", fasta, "--reads", reads, "--out", out,
@@ -182,7 +182,7 @@ def test_aux_stream_roundtrip_long_indels_and_counts():
     """The var-length aux stream handles what the old int32-pair packing
     crashed on: indel seqs >8 bp and arbitrarily large counts."""
     sys.path.insert(0, REPO)
-    from mapcaller_tpu.parallel.multihost import _decode_aux, _serialize_aux
+    from mapcaller.parallel.multihost import _decode_aux, _serialize_aux
 
     class P:
         pass

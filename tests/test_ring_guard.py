@@ -14,16 +14,16 @@ import time
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.pipeline.engine import MappingEngine
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.pipeline.engine import MappingEngine
 
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
 
 def test_parser_slots_exported():
-    from mapcaller_tpu.native import load_lib
+    from mapcaller.native import load_lib
     lib = load_lib()
     n = int(lib.mc_parser_slots())
     assert n >= 4   # the pipeline needs headroom for depth + group
@@ -62,8 +62,8 @@ def test_depth_group_past_boundary(toy_fasta, tmp_path, group, depth):
     16-slot boundary: the pipeline must clamp (not wrap) and produce
     output byte-identical to the default settings. Pre-fix, group>=16
     silently mapped ZERO reads and group+depth>16 corrupted read data."""
-    from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-    from mapcaller_tpu.pipeline.stream import run_stream_mapping
+    from mapcaller.pipeline.device_backend import DeviceBackend
+    from mapcaller.pipeline.stream import run_stream_mapping
 
     idx = build_index(toy_fasta)
 

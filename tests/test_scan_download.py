@@ -7,11 +7,11 @@ import os
 import numpy as np
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.stream import run_stream_mapping
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
@@ -36,7 +36,7 @@ def scanned_engine(toy_fasta, tmp_path_factory):
 
 
 def test_lazy_block_depth_matches_host(scanned_engine):
-    from mapcaller_tpu.calling.caller import cal_block_read_depth
+    from mapcaller.calling.caller import cal_block_read_depth
     engine, (bd, _, _, _, _) = scanned_engine
     host_bd = cal_block_read_depth(engine.profile,
                                    engine.genome.genome_size)

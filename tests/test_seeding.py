@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-from mapcaller_tpu.dna import decode, encode
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.index.packer import PackedReference
-from mapcaller_tpu.pipeline.seeding import (OCC_THR, MIN_SEED_LEN, bwt_search,
+from mapcaller.dna import decode, encode
+from mapcaller.index.fmindex import build_index
+from mapcaller.index.packer import PackedReference
+from mapcaller.pipeline.seeding import (OCC_THR, MIN_SEED_LEN, bwt_search,
                                             identify_simple_pairs)
 
 

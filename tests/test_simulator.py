@@ -7,9 +7,9 @@ import sys
 import numpy as np
 import pytest
 
-from mapcaller_tpu.dna import encode, revcomp_codes, decode
-from mapcaller_tpu.index.packer import iter_fasta
-from mapcaller_tpu.simulator import mutate_genome
+from mapcaller.dna import encode, revcomp_codes, decode
+from mapcaller.index.packer import iter_fasta
+from mapcaller.simulator import mutate_genome
 
 
 def _write_genome(path, rng, L=120_000):
@@ -57,7 +57,7 @@ def test_mutate_genome_event_mix(tmp_path, rng):
 def test_sim_subcommand(tmp_path, rng):
     fa = str(tmp_path / "g.fa")
     _write_genome(fa, rng)
-    from mapcaller_tpu.cli import main
+    from mapcaller.cli import main
     rc = main(["mapcaller", "sim", fa, str(tmp_path / "out"), "5", "100"])
     assert rc == 0
     assert os.path.exists(str(tmp_path / "out.mut.fa"))
@@ -67,12 +67,12 @@ def test_sim_subcommand(tmp_path, rng):
 
 
 def test_observe_dump(toy_fasta, tmp_path):
-    from mapcaller_tpu.config import Config
-    from mapcaller_tpu.index.fmindex import build_index
-    from mapcaller_tpu.io.fastq import iter_chunks
-    from mapcaller_tpu.pipeline.engine import MappingEngine
-    from mapcaller_tpu.pipeline.read import ReadState
-    from mapcaller_tpu.tools import observe
+    from mapcaller.config import Config
+    from mapcaller.index.fmindex import build_index
+    from mapcaller.io.fastq import iter_chunks
+    from mapcaller.pipeline.engine import MappingEngine
+    from mapcaller.pipeline.read import ReadState
+    from mapcaller.tools import observe
 
     DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
     idx = build_index(toy_fasta)

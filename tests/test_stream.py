@@ -6,12 +6,12 @@ import time
 
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.config import Config
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.stream import run_stream_mapping
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "subset")
 
@@ -50,7 +50,7 @@ def test_stream_pe_matches_golden(toy_idx, tmp_path):
     golden = read_lines(os.path.join(DATA, "sub_ref.sam.gz"))
     assert sam == golden
 
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test")
     got = [l for l in read_lines(cfg.vcf_file)
            if not l.startswith("##command_line") and not l.startswith("##reference")]
@@ -104,7 +104,7 @@ def test_stream_pe_compact_matches_golden(toy_idx, tmp_path):
     golden = read_lines(os.path.join(DATA, "sub_ref.sam.gz"))
     assert sam == golden
 
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test")
     got = [l for l in read_lines(cfg.vcf_file)
            if not l.startswith("##command_line") and not l.startswith("##reference")]
@@ -128,7 +128,7 @@ def test_stream_host_evidence_fallback_matches_golden(toy_idx, tmp_path):
     golden = read_lines(os.path.join(DATA, "sub_ref.sam.gz"))
     assert sam == golden
 
-    from mapcaller_tpu.runner import run_calling
+    from mapcaller.runner import run_calling
     run_calling(engine, cfg, "test")
     got = [l for l in read_lines(cfg.vcf_file)
            if not l.startswith("##command_line")

@@ -8,22 +8,22 @@ import time
 import numpy as np
 import pytest
 
-from mapcaller_tpu.config import Config
-from mapcaller_tpu.dna import decode
-from mapcaller_tpu.index.fmindex import build_index
-from mapcaller_tpu.io.fastq import iter_chunks
-from mapcaller_tpu.io.sam import sam_headers
-from mapcaller_tpu.pipeline.device_backend import DeviceBackend
-from mapcaller_tpu.pipeline.engine import MappingEngine
-from mapcaller_tpu.pipeline.read import ReadState
-from mapcaller_tpu.pipeline.stream import run_stream_mapping
+from mapcaller.config import Config
+from mapcaller.dna import decode
+from mapcaller.index.fmindex import build_index
+from mapcaller.io.fastq import iter_chunks
+from mapcaller.io.sam import sam_headers
+from mapcaller.pipeline.device_backend import DeviceBackend
+from mapcaller.pipeline.engine import MappingEngine
+from mapcaller.pipeline.read import ReadState
+from mapcaller.pipeline.stream import run_stream_mapping
 
 
 @pytest.fixture(scope="module")
 def edge_files(toy_fasta, tmp_path_factory, rng):
     """Paired reads sampled from the toy genome with injected Ns and a
     few over-length reads."""
-    from mapcaller_tpu.index.packer import iter_fasta
+    from mapcaller.index.packer import iter_fasta
     d = tmp_path_factory.mktemp("edge")
     name, seq = next(iter_fasta(toy_fasta))
     L = len(seq)
@@ -34,7 +34,7 @@ def edge_files(toy_fasta, tmp_path_factory, rng):
             frag = rlen + 200
             p = int(rng.integers(0, L - frag))
             s1 = list(seq[p:p + rlen])
-            from mapcaller_tpu.dna import revcomp_str
+            from mapcaller.dna import revcomp_str
             s2 = list(revcomp_str(seq[p + frag - rlen:p + frag]))
             if k % 5 == 0:                          # inject Ns
                 for _ in range(int(rng.integers(1, 4))):

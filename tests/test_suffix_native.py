@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from mapcaller_tpu.index.suffix import (_build_suffix_array_native,
+from mapcaller.index.suffix import (_build_suffix_array_native,
                                         _build_suffix_array_numpy)
 
 
@@ -20,7 +20,7 @@ def test_lean_builder_matches_core_oracle(rng):
     int32/int64 entries and the i32-downcast recursion branch."""
     import ctypes as C
 
-    from mapcaller_tpu.native import _ptr, load_lib
+    from mapcaller.native import _ptr, load_lib
     lib = load_lib()
     lib.mc_build_sa_full_oracle.argtypes = [C.c_void_p, C.c_int64,
                                             C.c_void_p]
